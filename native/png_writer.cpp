@@ -1,4 +1,4 @@
-// Native PNG encoder for python_ray_tracer_tpu's viewer/output layer.
+// Native PNG encoder for python_ray_tracer_jax's viewer/output layer.
 //
 // The reference's output path is Pillow: viewer/image.py:7-19 builds a PIL
 // Image and main.py:53 saves it, making Pillow a hard runtime dependency

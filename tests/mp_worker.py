@@ -1,8 +1,8 @@
-"""Multi-process worker for the real DCN-analogue test (see test_parallel.py).
+"""Multi-process worker for the real multi-host test (see test_parallel.py).
 
 Launched as ``python tests/mp_worker.py <process_id> <port>`` — two of these
 form a 2-process x 2-local-device JAX cluster over loopback (Gloo), the CPU
-stand-in for a multi-host pod slice over DCN. Each process renders its shards
+stand-in for several hosts on a network. Each process renders its shards
 of the demo scene over the GLOBAL 4-device mesh via the production sharded
 path, assembles the framebuffer with ``gather_framebuffer`` (the tiled
 ``all_gather`` collective — reference analogue ``copy_to_host``,
@@ -25,15 +25,15 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import numpy as np  # noqa: E402
 
-from python_ray_tracer_tpu.parallel.distributed import (gather_framebuffer,  # noqa: E402
+from python_ray_tracer_jax.parallel.distributed import (gather_framebuffer,  # noqa: E402
                                                         initialize)
 
 initialize(coordinator_address=f"127.0.0.1:{port}", num_processes=2,
            process_id=pid)
 
-import python_ray_tracer_tpu as rt  # noqa: E402
-from python_ray_tracer_tpu.parallel.mesh import make_mesh  # noqa: E402
-from python_ray_tracer_tpu.parallel.render_sharded import render_image_sharded  # noqa: E402
+import python_ray_tracer_jax as rt  # noqa: E402
+from python_ray_tracer_jax.parallel.mesh import make_mesh  # noqa: E402
+from python_ray_tracer_jax.parallel.render_sharded import render_image_sharded  # noqa: E402
 
 assert jax.process_count() == 2, jax.process_count()
 assert jax.local_device_count() == 2, jax.local_device_count()
@@ -64,9 +64,9 @@ if check_train:
     # the single-device values.
     import dataclasses  # noqa: E402
 
-    from python_ray_tracer_tpu import train  # noqa: E402
-    from python_ray_tracer_tpu.parallel.mesh import image_sharding  # noqa: E402
-    from python_ray_tracer_tpu.parallel.render_sharded import make_loss_fn  # noqa: E402
+    from python_ray_tracer_jax import train  # noqa: E402
+    from python_ray_tracer_jax.parallel.mesh import image_sharding  # noqa: E402
+    from python_ray_tracer_jax.parallel.render_sharded import make_loss_fn  # noqa: E402
 
     target = rt.render_image(cam, scene, depth=1, aliasing=False)
     target_sh = jax.device_put(target, image_sharding(mesh))

@@ -4,8 +4,8 @@ import os
 import jax
 import numpy as np
 
-import python_ray_tracer_tpu as rt
-from python_ray_tracer_tpu import animation
+import python_ray_tracer_jax as rt
+from python_ray_tracer_jax import animation
 
 
 def test_orbit_cameras_look_at_center():

@@ -18,7 +18,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-import python_ray_tracer_tpu as rt
+import python_ray_tracer_jax as rt
 
 
 def _fd(f, x0, bump, eps):
@@ -147,3 +147,34 @@ def test_grads_nonzero_where_expected(setup):
     assert float(jnp.abs(g.spheres.center).sum()) > 0
     assert float(jnp.abs(g.lights.position).sum()) > 0
     assert float(jnp.abs(g.materials.lambert)) > 0
+
+
+def _tangent_sphere_loss(x):
+    """A ray exactly tangent to sphere 1 (discriminant exactly 0) whose
+    closest hit is sphere 0: sphere 1's distance gets a zero cotangent."""
+    o = jnp.asarray([0.0, 1.0, 0.0]) + x
+    d = jnp.asarray([1.0, 0.0, 0.0])
+    center = jnp.asarray([[2.0, 1.0, 0.0], [5.0, 0.0, 0.0]])
+    t, valid = rt.intersect_spheres(o, d, center, jnp.asarray([0.5, 1.0]))
+    assert bool(valid[1])
+    return jnp.min(t)
+
+
+def _parallel_plane_loss(x):
+    """A ray so close to parallel that 1/denom**2 overflows float32; the plane
+    is masked out (|d . n| < eps), so its distance gets a zero cotangent."""
+    o = jnp.asarray([0.0, 0.0, 1.0])
+    d = jnp.asarray([1.0, 0.0, 1e-20]) + x
+    origin = jnp.asarray([[0.0, 0.0, 0.0], [3.0, 0.0, 0.0]])
+    normal = jnp.asarray([[0.0, 0.0, 1.0], [-1.0, 0.0, 0.0]])
+    t, valid = rt.intersect_planes(o, d, origin, normal)
+    return jnp.sum(jnp.where(valid, t, 0.0))
+
+
+@pytest.mark.parametrize("loss", [_tangent_sphere_loss, _parallel_plane_loss])
+def test_degenerate_intersection_grads_finite(loss):
+    """Derivative singularities on branches that do not win stay out of the
+    gradient: a tangent ray and a near-parallel plane must not turn the
+    gradient into NaN (on the GPU the fused jit of a camera fit met one)."""
+    g = jax.grad(loss)(jnp.zeros(3))
+    assert np.isfinite(np.asarray(g)).all(), g

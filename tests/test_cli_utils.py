@@ -5,11 +5,11 @@ import os
 import numpy as np
 import pytest
 
-import python_ray_tracer_tpu as rt
-from python_ray_tracer_tpu.cli import main
-from python_ray_tracer_tpu.utils.metrics import MetricsLogger
-from python_ray_tracer_tpu.utils.profiling import annotate, capture_trace
-from python_ray_tracer_tpu.utils.timing import time_fn, rays_per_image
+import python_ray_tracer_jax as rt
+from python_ray_tracer_jax.cli import main
+from python_ray_tracer_jax.utils.metrics import MetricsLogger
+from python_ray_tracer_jax.utils.profiling import annotate, capture_trace
+from python_ray_tracer_jax.utils.timing import time_fn, rays_per_image
 
 
 def test_cli_render_writes_png(tmp_path):
@@ -34,25 +34,75 @@ def test_cli_render_clean_and_soft(tmp_path):
     assert not np.array_equal(a, b)  # soft edges differ from hard
 
 
-def test_render_fn_routes_dense_soft_to_kernel():
-    """Dense soft scenes route through the rolled pallas kernel — including
-    >16 planes (round 5: plane folds roll like sphere folds; the last
-    jnp fallback class is gone)."""
-    import dataclasses
+@pytest.mark.parametrize("backend,soft,kind", [
+    ("jnp", 0.0, "jnp"), ("pallas", 0.0, "pallas"), ("pallas", 0.05, "soft"),
+    ("jnp", 0.05, "soft")])
+def test_render_fn_routes(backend, soft, kind):
+    """The CLI's render dispatch: soft renders go to the soft renderer, hard
+    renders to the resolved backend (resolution itself is tested below)."""
+    from python_ray_tracer_jax.cli import _render_fn
+    from python_ray_tracer_jax.utils.config import RenderConfig
+
+    assert _render_fn(RenderConfig(backend=backend), soft_tau=soft).kind == kind
+
+
+@pytest.mark.parametrize("platform,backend,want", [
+    ("gpu", "auto", "pallas"), ("cpu", "auto", "jnp"), ("gpu", "jnp", "jnp"),
+    ("gpu", "pallas", "pallas"), ("cpu", "jnp", "jnp"),
+    ("cpu", "pallas", RuntimeError)])
+def test_resolve_backend(monkeypatch, platform, backend, want):
+    """auto picks the fused kernel on a GPU and the jnp path elsewhere; an
+    explicit kernel request off a GPU raises instead of falling back."""
     import jax
-    from python_ray_tracer_tpu.cli import _render_fn
-    from python_ray_tracer_tpu.utils.config import RenderConfig
+    from python_ray_tracer_jax.utils.config import resolve_backend
 
-    cfg = RenderConfig(backend="pallas")
-    dense = rt.random_scene(jax.random.key(0), 100)
-    fn = _render_fn(cfg, soft_tau=0.05, scene=dense)
-    assert "render_image_soft_pallas" in fn.__code__.co_freevars
+    monkeypatch.setattr(jax, "default_backend", lambda: platform)
+    if want is RuntimeError:
+        with pytest.raises(RuntimeError, match="GPU"):
+            resolve_backend(backend)
+    else:
+        assert resolve_backend(backend) == want
 
-    many_planes = dataclasses.replace(
-        dense, planes=rt.Planes.build(
-            [([5 + i, 0, 0], [0, 0, 1], rt.GREY) for i in range(17)]))
-    fn2 = _render_fn(cfg, soft_tau=0.05, scene=many_planes)
-    assert "render_image_soft_pallas" in fn2.__code__.co_freevars
+
+def test_cli_render_pallas_refuses_cpu(tmp_path):
+    with pytest.raises(RuntimeError, match="GPU"):
+        main(["render", "--width", "8", "--height", "8", "--backend", "pallas",
+              "--out", os.path.join(tmp_path, "p.png")])
+
+
+@pytest.mark.parametrize("env_set", [False, True])
+def test_enable_compile_cache(monkeypatch, tmp_path, env_set):
+    """JAX_COMPILATION_CACHE_DIR wins and is left to JAX; otherwise the cache
+    goes to a fixed directory in the checkout."""
+    import jax
+    from python_ray_tracer_jax.utils import config
+
+    calls = []
+    monkeypatch.setattr(jax.config, "update",
+                        lambda name, value: calls.append((name, value)))
+    if env_set:
+        monkeypatch.setenv("JAX_COMPILATION_CACHE_DIR", str(tmp_path))
+        assert config.enable_compile_cache() == str(tmp_path)
+        assert calls == []
+    else:
+        monkeypatch.delenv("JAX_COMPILATION_CACHE_DIR", raising=False)
+        path = config.enable_compile_cache()
+        root = os.path.dirname(os.path.dirname(os.path.abspath(rt.__file__)))
+        assert path == os.path.join(root, ".jax_cache")
+        assert calls == [("jax_compilation_cache_dir", path)]
+
+
+def test_bench_refuses_cpu(capsys):
+    """bench.py measures a GPU or nothing: no JSON line off the card."""
+    import sys
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    sys.path.insert(0, root)
+    try:
+        import bench
+    finally:
+        sys.path.remove(root)
+    assert bench.main() == 1
+    assert capsys.readouterr().out == ""
 
 
 def test_cli_random_scene(tmp_path):
@@ -79,7 +129,12 @@ def test_metrics_logger_jsonl(tmp_path):
     assert log.last("mrays") == 2.0
 
 
-def test_time_fn_measures():
+def test_time_fn_measures(monkeypatch):
+    """time_samples times each call alone (after the warm-up); time_fn is
+    their median."""
+    import statistics
+    from python_ray_tracer_jax.utils.timing import time_samples
+
     calls = []
 
     def fn():
@@ -87,9 +142,13 @@ def test_time_fn_measures():
         import jax.numpy as jnp
         return jnp.ones(4)
 
-    secs = time_fn(fn, warmup=1, iters=3, best_of=2)
-    assert secs >= 0.0
-    assert len(calls) == 1 + 3 * 2
+    samples = time_samples(fn, warmup=2, iters=3)
+    assert len(samples) == 3 and all(s >= 0.0 for s in samples)
+    assert len(calls) == 2 + 3
+    ticks = iter([0.0, 1.0, 10.0, 12.0, 20.0, 29.0])
+    import python_ray_tracer_jax.utils.timing as timing
+    monkeypatch.setattr(timing.time, "perf_counter", lambda: next(ticks))
+    assert time_fn(fn, warmup=0, iters=3) == statistics.median([1, 2, 9])
 
 
 def test_rays_per_image_accounting():
@@ -115,7 +174,7 @@ def test_profiling_capture(tmp_path):
 
 
 def test_config_reference_defaults():
-    from python_ray_tracer_tpu.utils.config import RenderConfig
+    from python_ray_tracer_jax.utils.config import RenderConfig
     cfg = RenderConfig.reference_defaults()
     # main.py:10-12 values
     assert (cfg.width, cfg.height) == (1000, 1000)

@@ -3,8 +3,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-import python_ray_tracer_tpu as rt
-from python_ray_tracer_tpu.models import camera as cam_mod
+import python_ray_tracer_jax as rt
+from python_ray_tracer_jax.models import camera as cam_mod
 
 from . import oracle
 

@@ -1,7 +1,7 @@
 """Failure detection / fault injection / elastic resume (utils/faults.py).
 
 The reference has no failure-handling subsystem (single-GPU script); these
-tests pin the TPU build's: device health probes, NaN-loss detection with
+tests pin this framework's: device health probes, NaN-loss detection with
 checkpointed restart, exception-class faults, and the deterministic-failure
 diagnosis when restarts cannot help."""
 import jax
@@ -9,9 +9,9 @@ import jax.numpy as jnp
 import optax
 import pytest
 
-import python_ray_tracer_tpu as rt
-from python_ray_tracer_tpu import train
-from python_ray_tracer_tpu.utils.faults import (FaultInjector, InjectedFault,
+import python_ray_tracer_jax as rt
+from python_ray_tracer_jax import train
+from python_ray_tracer_jax.utils.faults import (FaultInjector, InjectedFault,
                                                 UnrecoverableTraining,
                                                 device_healthcheck,
                                                 resilient_fit)

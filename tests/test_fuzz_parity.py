@@ -8,7 +8,7 @@ stay tiny.
 import numpy as np
 import pytest
 
-import python_ray_tracer_tpu as rt
+import python_ray_tracer_jax as rt
 
 from . import oracle
 

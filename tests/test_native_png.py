@@ -1,15 +1,16 @@
 """Native C++ PNG encoder (native/png_writer.cpp + utils/native.py).
 
 The save path must be pixel-exact against PIL's decoder: PNG is lossless, so
-whatever the native encoder writes, PIL must read back bit-identically. These
-tests also pin the save_png dispatch (native preferred, PIL fallback)."""
+whatever either encoder writes — the native one or the standard-library one in
+utils/image.py — PIL must read back bit-identically. These tests also pin the
+save_png dispatch (native preferred, standard-library fallback)."""
 import io
 import os
 
 import numpy as np
 import pytest
 
-from python_ray_tracer_tpu.utils import image, native
+from python_ray_tracer_jax.utils import image, native
 
 
 requires_native = pytest.mark.skipif(
@@ -83,14 +84,18 @@ def test_save_png_native_matches_pil_route(tmp_path, monkeypatch):
 
 
 def test_save_png_pil_fallback(tmp_path, monkeypatch):
-    """Without the native library, save_png still works via PIL."""
+    """Without the native library, save_png still works — through the
+    standard-library encoder, not Pillow."""
+    import sys
     from PIL import Image
 
     monkeypatch.setattr(native, "available", lambda: False)
     fb = np.zeros((3, 8, 6), dtype=np.uint8)
     fb[0] = 255
     path = str(tmp_path / "fallback.png")
+    monkeypatch.setitem(sys.modules, "PIL", None)   # Pillow unavailable
     image.save_png(fb, path)
+    monkeypatch.delitem(sys.modules, "PIL")
     back = np.asarray(Image.open(path).convert("RGB"))
     assert back.shape == (6, 8, 3)
     np.testing.assert_array_equal(back[..., 0], 255)
@@ -110,3 +115,30 @@ def test_native_write_io_error(tmp_path):
     img = np.zeros((4, 4, 3), np.uint8)
     with pytest.raises(RuntimeError):
         native.write_png(str(tmp_path / "no_dir" / "x.png"), img)
+
+
+@pytest.mark.parametrize("shape", [(1, 1), (7, 5), (33, 64), (128, 200)])
+def test_stdlib_png_roundtrip(shape):
+    """utils.image.encode_png (zlib only) decodes bit-identically in PIL."""
+    from PIL import Image
+
+    h, w = shape
+    img = np.random.default_rng(3).integers(0, 256, size=(h, w, 3),
+                                            dtype=np.uint8)
+    data = image.encode_png(img)
+    assert data[:8] == b"\x89PNG\r\n\x1a\n"
+    back = np.asarray(Image.open(io.BytesIO(data)).convert("RGB"))
+    np.testing.assert_array_equal(back, img)
+
+
+def test_stdlib_png_levels_and_shapes():
+    y = np.linspace(0, 255, 90, dtype=np.uint8)[:, None]
+    x = np.linspace(0, 255, 120, dtype=np.uint8)[None, :]
+    img = np.stack([y + 0 * x, 0 * y + x, (y // 2 + x // 2)], axis=-1)
+    img = img.astype(np.uint8)
+    assert len(image.encode_png(img, level=9)) <= len(image.encode_png(img,
+                                                                      level=1))
+    with pytest.raises(ValueError):
+        image.encode_png(np.zeros((4, 4), np.uint8))
+    with pytest.raises(ValueError):
+        image.encode_png(np.zeros((4, 4, 4), np.uint8))

@@ -1,5 +1,9 @@
-"""Fused Pallas kernel vs the jnp reference path (interpret mode on CPU;
-the same kernel compiles via Mosaic on real TPU — exercised by bench.py)."""
+"""Fused GPU render kernel vs the jnp reference path.
+
+Every kernel test here runs the kernel in the Pallas interpreter on the CPU
+(``interpret=True``); the compiled kernel is checked on the card by
+chip_smoke.py and by the ``gpu``-marked test at the end of this file.
+"""
 import dataclasses
 
 import jax
@@ -7,469 +11,206 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-import python_ray_tracer_tpu as rt
-from python_ray_tracer_tpu.ops.pallas.render_pallas import (render_image_pallas,
+import python_ray_tracer_jax as rt
+from python_ray_tracer_jax.ops.pallas import render_pallas as rp
+from python_ray_tracer_jax.ops.pallas.render_pallas import (render_image_pallas,
                                                             render_image_fast)
 
 
-def _compare(cam, scene, *, depth, aliasing, compat, tile_w=8, tile_h=32,
-             atol=1e-4, aa_share=False):
-    # aa_share=False by default: the shared-sample kernel's larger fused graph
-    # takes minutes to compile in CPU interpret mode; it gets one dedicated test.
+def _compare(cam, scene, *, depth, aliasing, compat, atol=1e-4, **kw):
     ref = np.asarray(rt.render_image(cam, scene, depth=depth, aliasing=aliasing,
                                      compat=compat))
-    out = np.asarray(render_image_pallas(cam, scene, depth=depth, aliasing=aliasing,
-                                         compat=compat, tile_w=tile_w, tile_h=tile_h,
-                                         interpret=True, aa_share=aa_share))
+    out = np.asarray(render_image_pallas(cam, scene, depth=depth,
+                                         aliasing=aliasing, compat=compat,
+                                         interpret=True, **kw))
+    assert out.shape == ref.shape
     diff = np.abs(out - ref)
-    # f32 reassociation can flip a near-tied hit/shadow test at isolated pixels
-    # (the kernel's hoisted quadratic rounds differently from the jnp form);
+    # f32 reassociation can flip a near-tied hit/shadow test at isolated pixels;
     # flips are discrete and bounded by the shading range, so bound the *count*
     # of outliers at two magnitudes rather than the worst case.
     frac_bad = (diff > atol).mean()
     assert frac_bad <= 0.005, f"{frac_bad:.2%} of values exceed atol={atol}"
     assert (diff > 0.05).mean() <= 0.002, (
         f"{(diff > 0.05).mean():.2%} hit-flip outliers (max {diff.max()})")
+    return out
 
 
-@pytest.mark.parametrize("depth,aliasing,compat", [
-    (0, False, True),
-    (2, False, True),
-    (2, True, True),
-    # clean-AA and depth-4 each re-trace the interpret graph (10-15 s); the
-    # fast suite keeps one AA and one clean variant, --runslow restores these
-    pytest.param(2, True, False, marks=pytest.mark.slow),
-    pytest.param(4, False, True, marks=pytest.mark.slow),
-])
+@pytest.mark.parametrize("compat", [True, False])
+@pytest.mark.parametrize("aliasing", [False, True])
+@pytest.mark.parametrize("depth", [0, 1, 2, 4])
 def test_pallas_matches_jnp(demo_scene, depth, aliasing, compat):
     cam = rt.default_camera((24, 24))
     _compare(cam, demo_scene, depth=depth, aliasing=aliasing, compat=compat)
 
 
-@pytest.mark.slow
-def test_pallas_aa_shared_samples(demo_scene):
-    """Shared half-offset AA samples == per-pixel samples (bit-identical math)."""
-    cam = rt.default_camera((32, 32))
-    _compare(cam, demo_scene, depth=1, aliasing=True, compat=True, aa_share=True)
-
-
 def test_pallas_clean_specular(demo_scene):
-    """Clean-mode Phong specular in the fused kernel == jnp path with
-    specular > 0 (VERDICT r1 #4: the old kernel silently dropped the term —
-    the specular=0 clean test above cannot see that). depth=1 keeps the
-    interpret trace small; the term applies at every trace level alike."""
+    """Clean-mode Phong specular in the kernel == jnp path with specular > 0
+    (the specular=0 clean cases above cannot see a dropped term)."""
     cam = rt.default_camera((16, 16))
     scene = dataclasses.replace(
         demo_scene, materials=rt.Materials.build(specular=0.8, shininess=16.0))
-    assert float(scene.materials.specular) > 0.0
-    _compare(cam, scene, depth=1, aliasing=False, compat=False)
-    # and prove it actually shades: specular image != specular-free image
-    base = np.asarray(rt.render_image(cam, demo_scene, depth=1, aliasing=False,
+    spec = _compare(cam, scene, depth=2, aliasing=False, compat=False)
+    base = np.asarray(rt.render_image(cam, demo_scene, depth=2, aliasing=False,
                                       compat=False))
-    spec = np.asarray(render_image_pallas(cam, scene, depth=1, aliasing=False,
-                                          compat=False, tile_w=8, tile_h=16,
-                                          interpret=True))
-    assert np.abs(spec - base).max() > 0.05
+    assert np.abs(spec - base).max() > 0.05   # the term actually shades
 
 
-def test_pallas_nonsquare_partial_tiles(demo_scene):
-    """Resolution not divisible by the tile: partial blocks must mask correctly."""
-    cam = rt.Camera.build((40, 24), [-2, 0, 2], [0, -30, 0])
-    _compare(cam, demo_scene, depth=1, aliasing=True, compat=True,
-             tile_w=16, tile_h=16)
+@pytest.mark.parametrize("size", [(40, 24), (13, 7), (33, 17), (1, 1)])
+def test_pallas_nonsquare_partial_tiles(demo_scene, size):
+    """Pixel counts that are not a multiple of the program block: the padded
+    tail is computed and sliced off without touching real pixels."""
+    assert (size[0] * size[1]) % rp._BLOCK != 0
+    cam = rt.Camera.build(size, [-2, 0, 2], [0, -30, 0])
+    _compare(cam, demo_scene, depth=1, aliasing=True, compat=True)
 
 
-def test_pallas_large_scene_rolled_loops():
-    """>16 objects takes the chunk-unrolled fori_loop path with dynamic SMEM
-    reads, shadow early-exit, and the per-tile primary cone cull."""
-    scene = rt.random_scene(jax.random.key(1), n_spheres=24)
-    cam = rt.Camera.build((24, 24), [-6, 0, 3], [0, -20, 0])
+@pytest.mark.parametrize("aliasing", [False, True])
+@pytest.mark.parametrize("n_slices", [2, 4])
+def test_pallas_slices_reassemble(demo_scene, n_slices, aliasing):
+    """x_offset/local_width slices (the ray-DP shard layout) reassemble to the
+    whole-image kernel render, AA halos at slice boundaries included."""
+    cam = rt.default_camera((32, 16))
+    kw = dict(depth=2, aliasing=aliasing, compat=True, interpret=True)
+    whole = np.asarray(render_image_pallas(cam, demo_scene, **kw))
+    step = 32 // n_slices
+    parts = [np.asarray(render_image_pallas(cam, demo_scene, x_offset=i * step,
+                                            local_width=step, **kw))
+             for i in range(n_slices)]
+    # each slice is its own XLA program, which may contract a different f32
+    # expression into an FMA: ~1e-6 level differences, no hit flips
+    np.testing.assert_allclose(np.concatenate(parts, axis=0), whole, atol=2e-5)
+
+
+@pytest.mark.parametrize("n_spheres,n_lights", [(24, 3), (40, 3), (6, 20)])
+def test_pallas_large_scene_rolled_loops(n_spheres, n_lights):
+    """Many spheres, and more than 16 lights: the object and light loops are
+    rolled ``fori_loop``s whatever the count."""
+    scene = rt.random_scene(jax.random.key(1), n_spheres=n_spheres)
+    if n_lights != scene.lights.count:
+        # a ring of lights high above the spheres
+        a = jnp.linspace(0.0, 2.0 * jnp.pi, n_lights, endpoint=False)
+        lights = jnp.stack([2.0 + 6.0 * jnp.cos(a), 6.0 * jnp.sin(a),
+                            jnp.full((n_lights,), 9.0)], axis=-1)
+        scene = dataclasses.replace(scene, lights=rt.Lights(lights))
+    cam = rt.Camera.build((32, 32), [-6, 0, 3], [0, -20, 0])
     _compare(cam, scene, depth=1, aliasing=False, compat=True)
 
 
-@pytest.mark.parametrize("aliasing,aa_share,depth", [
-    # no-AA cull exactness also rides test_pallas_large_scene_rolled_loops;
-    # the depth-2 no-AA and shared-AA variants are 16-40 s traces
-    pytest.param(False, False, 2, marks=pytest.mark.slow),
-    (True, False, 1),
-    pytest.param(True, True, 1, marks=pytest.mark.slow)])
-def test_pallas_cone_cull_exact(aliasing, aa_share, depth):
-    """The conservative per-tile cone cull must be invisible: culled == unculled
-    bit-for-bit (a sphere is only dropped when it provably misses every used
-    ray of the tile, AA half-offsets and shared pad rows included)."""
-    # Sized for the fast suite: 24 spheres / 16x8 keep the AA variant cheap
-    # in interpret mode while the cull still fires (asserted below).
-    scene = rt.random_scene(jax.random.key(7), n_spheres=24)
-    cam = rt.Camera.build((16, 8), [-7, 0, 3], [0, -20, 0])
-    kw = dict(depth=depth, aliasing=aliasing, compat=True, tile_w=8, tile_h=8,
-              interpret=True, aa_share=aa_share)
-    a = np.asarray(render_image_pallas(cam, scene, cull=True, **kw))
-    b = np.asarray(render_image_pallas(cam, scene, cull=False, **kw))
-    np.testing.assert_array_equal(a, b)
-    # sanity: the cull is actually active for this scene size
-    from python_ray_tracer_tpu.ops.pallas.render_pallas import (_tile_visibility,
-                                                                _UNROLL_LIMIT)
-    assert scene.spheres.count > _UNROLL_LIMIT
-    _, cnt = _tile_visibility(cam, scene, n_u=2, n_v=1, TW=8, TH=8,
-                              swap_xy=False, x_offset=0.0, compat=True)
-    assert int(cnt.min()) < scene.spheres.count  # some tile culls something
+@pytest.mark.parametrize("spheres,planes,lights", [
+    (True, False, False), (False, True, True), (True, True, False),
+    (False, False, False)])
+def test_pallas_no_planes_no_lights(spheres, planes, lights):
+    """Scenes without planes, spheres or lights compile their loops away."""
+    scene = rt.Scene(
+        rt.Spheres.build([([3.0, 0.0, 0.0], 1.0, rt.RED)] if spheres else []),
+        rt.Planes.build([([5, 0, -1], [0, 0, 1], rt.GREY)] if planes else []),
+        rt.Lights.build([[2.5, -2.0, 3.0]] if lights else []),
+        rt.Materials.build(ambient=0.5))
+    cam = rt.Camera.build((16, 16), [0, 0, 0.5], [0, -10, 0])
+    out = _compare(cam, scene, depth=1, aliasing=False, compat=True)
+    assert (out.max() > 0.0) == (spheres or planes)
 
 
-def test_pallas_group_cull_exact():
-    """The Morton-grouped bounce-sweep cull must be invisible: grouped ==
-    plain bit-for-bit. A skipped group's bounding ball provably misses every
-    lane ray (member balls are strictly inside); sweep order is the Morton
-    permutation, which can move only exact-tie winners."""
-    from python_ray_tracer_tpu.ops.pallas.render_pallas import (
-        _sphere_groups, _GROUP_SIZE)
-    scene = rt.random_scene(jax.random.key(5), n_spheres=40)
-    cam = rt.Camera.build((16, 8), [-7, 0, 3], [0, -15, 0])
-    kw = dict(depth=1, aliasing=False, compat=True, tile_w=8, tile_h=8,
-              interpret=True)
-    a = np.asarray(render_image_pallas(cam, scene, group_cull=False, **kw))
-    b = np.asarray(render_image_pallas(cam, scene, group_cull=True, **kw))
-    np.testing.assert_array_equal(a, b)
-    # table sanity: perm is a permutation + pad, bounds cover members —
-    # including under the camera-distance group ordering the resolvers use
-    perm, bnd = _sphere_groups(scene.spheres.center, scene.spheres.radius,
-                               order_from=cam.position)
-    ns = scene.spheres.count
-    assert sorted(np.asarray(perm)[:ns].tolist()) == list(range(ns))
-    bnd = np.asarray(bnd).reshape(-1, 4)
-    cen = np.asarray(scene.spheres.center)
-    rad = np.asarray(scene.spheres.radius)
-    for g in range(ns // _GROUP_SIZE + (ns % _GROUP_SIZE > 0)):
-        members = np.asarray(perm)[g * _GROUP_SIZE:(g + 1) * _GROUP_SIZE]
-        members = members[np.arange(g * _GROUP_SIZE,
-                                    (g + 1) * _GROUP_SIZE) < ns]
-        d = np.linalg.norm(cen[members] - bnd[g, :3], axis=-1) + rad[members]
-        assert (d <= bnd[g, 3]).all()
-
-
-def test_pallas_cull_k_overflow_sentinel():
-    """Tiles whose visible-sphere list overflows its K slots must fall back to a
-    full sweep (sentinel count -1), keeping the compact table conservative."""
-    from python_ray_tracer_tpu.ops.pallas.render_pallas import _tile_visibility
-    scene = rt.random_scene(jax.random.key(3), n_spheres=40)
-    # Camera pulled far back: every sphere fits inside each tile's cone, so
-    # per-tile counts exceed K and every tile takes the sentinel path.
-    cam = rt.Camera.build((16, 16), [-60, 0, 3], [0, -5, 0])
-    idx, cnt = _tile_visibility(cam, scene, n_u=2, n_v=2, TW=8, TH=8,
-                                swap_xy=False, x_offset=0.0, compat=True, K=8)
-    assert idx.shape == (4 * 8,) and cnt.shape == (4,)
-    assert int(cnt.max()) == -1  # at least one overflow tile
-
-
-@pytest.mark.slow
-def test_pallas_cull_k_overflow_sentinel_kernel():
-    """Kernel integration of the overflow sentinel: culled render == unculled
-    when every tile takes the sentinel full-sweep path (same setup as the fast
-    jnp-level test above; split out because two 40-sphere interpret renders
-    cost ~17 s)."""
-    scene = rt.random_scene(jax.random.key(3), n_spheres=40)
-    cam = rt.Camera.build((16, 16), [-60, 0, 3], [0, -5, 0])
-    kw = dict(depth=1, aliasing=False, compat=True, tile_w=8, tile_h=8,
-              interpret=True)
-    a = np.asarray(render_image_pallas(cam, scene, cull=True, **kw))
-    b = np.asarray(render_image_pallas(cam, scene, cull=False, **kw))
-    np.testing.assert_array_equal(a, b)
-
-
-def test_pallas_no_planes_no_lights():
-    scene = rt.Scene(rt.Spheres.build([([3.0, 0.0, 0.0], 1.0, rt.RED)]),
-                     rt.Planes.build([]), rt.Lights.build([]),
-                     rt.Materials.build(ambient=0.5))
-    cam = rt.Camera.build((16, 16), [0, 0, 0], [0, 0, 0])
-    _compare(cam, scene, depth=1, aliasing=False, compat=True)
-
-
-@pytest.mark.slow
-def test_render_image_fast_grads_match_jnp(demo_scene):
-    """custom_vjp: pallas forward, jnp backward — grads equal the pure jnp grads."""
+@pytest.mark.parametrize("aliasing", [False, True])
+def test_render_image_fast_grads_match_jnp(demo_scene, aliasing):
+    """custom_vjp: kernel forward, jnp-autodiff backward. With a loss linear in
+    the image both see the same cotangent, so the gradients match."""
     cam = rt.default_camera((16, 16))
+    w = jax.random.uniform(jax.random.key(0), (16, 16, 3))
 
     def loss_fast(s):
-        return (render_image_fast(cam, s, 1, False, True) ** 2).sum()
+        return jnp.sum(render_image_fast(cam, s, 1, aliasing, True, True) * w)
 
     def loss_ref(s):
-        return (rt.render_image(cam, s, depth=1, aliasing=False) ** 2).sum()
+        return jnp.sum(rt.render_image(cam, s, depth=1, aliasing=aliasing) * w)
 
-    import jax.numpy as jnp
-    with jax.disable_jit(False):
-        # interpret mode needs to be baked into both kernel calls on CPU
-        import python_ray_tracer_tpu.ops.pallas.render_pallas as rp
-        import python_ray_tracer_tpu.ops.pallas.render_bwd as rb
-        orig = rp.render_image_pallas
-        orig_b = rb.scene_grads_pallas
-        g_fast = None
-        try:
-            rp.render_image_pallas = lambda c, s, **kw: orig(
-                c, s, interpret=True,
-                **{k: v for k, v in kw.items() if k != "interpret"})
-            rb.scene_grads_pallas = lambda c, s, g, **kw: orig_b(
-                c, s, g, interpret=True,
-                **{k: v for k, v in kw.items() if k != "interpret"})
-            g_fast = jax.grad(loss_fast)(demo_scene)
-        finally:
-            rp.render_image_pallas = orig
-            rb.scene_grads_pallas = orig_b
-    g_ref = jax.grad(loss_ref)(demo_scene)
-    # The fast path's backward is now the fused adjoint kernel: geometry grads
-    # differ from XLA autodiff at grazing pixels (a.e. clamp) by up to ~1%.
+    v_fast, g_fast = jax.value_and_grad(loss_fast)(demo_scene)
+    v_ref, g_ref = jax.value_and_grad(loss_ref)(demo_scene)
+    np.testing.assert_allclose(float(v_fast), float(v_ref), rtol=1e-4)
     for a, b in zip(jax.tree_util.tree_leaves(g_fast),
                     jax.tree_util.tree_leaves(g_ref)):
-        a, b = np.asarray(a), np.asarray(b)
-        denom = np.abs(b).max() + 1e-12
-        assert np.abs(a - b).max() / denom < 5e-2
+        np.testing.assert_allclose(np.asarray(a), np.asarray(b),
+                                   rtol=1e-5, atol=1e-7)
 
 
-def test_pallas_sharded_slices(demo_scene):
-    """Sharded fused-kernel path: per-device global column slices == whole image."""
-    import jax
-    from python_ray_tracer_tpu.parallel.mesh import make_mesh
-    from python_ray_tracer_tpu.parallel.render_sharded import render_image_sharded
+@pytest.mark.parametrize("aliasing", [False, True])
+def test_pallas_sharded_slices(demo_scene, aliasing):
+    """Sharded kernel path on 4 virtual devices: per-device global column
+    slices == whole image."""
+    from python_ray_tracer_jax.parallel.mesh import make_mesh
+    from python_ray_tracer_jax.parallel.render_sharded import render_image_sharded
 
     mesh = make_mesh(jax.devices()[:4])
     cam = rt.default_camera((32, 32))
-    whole = np.asarray(rt.render_image(cam, demo_scene, depth=1, aliasing=True))
-    out = render_image_sharded(cam, demo_scene, mesh, depth=1, aliasing=True,
-                               backend="pallas", pallas_interpret=True,
-                               aa_share=False)
+    whole = np.asarray(rt.render_image(cam, demo_scene, depth=1,
+                                       aliasing=aliasing))
+    out = render_image_sharded(cam, demo_scene, mesh, depth=1,
+                               aliasing=aliasing, backend="pallas",
+                               pallas_interpret=True)
+    assert len(out.sharding.device_set) == 4
     diff = np.abs(np.asarray(out) - whole)
     assert (diff > 1e-4).mean() < 0.005 and diff.max() < 0.05
 
 
-def test_sphere_occ_cheap_matches_root_form():
-    """The sqrt-free segment-clamp occlusion test must agree with the
-    reference root-selection semantics (smallest positive root, compat far
-    clip) on adversarial configurations: origins inside/outside/behind,
-    grazing rays, and spheres straddling the 999.0 far clip — everywhere the
-    two forms aren't separated only by an exact f32 tie."""
-    from python_ray_tracer_tpu.ops.pallas.render_pallas import (
-        _sphere_occ_cheap, FAR)
-    rng = np.random.default_rng(0)
-    n = 20000
-    o = rng.normal(0, 5, (n, 3)).astype(np.float32)
-    d = rng.normal(0, 1, (n, 3)).astype(np.float32)
-    d /= np.linalg.norm(d, axis=-1, keepdims=True)
-    c = rng.normal(0, 5, (n, 3)).astype(np.float32)
-    r = rng.uniform(0.01, 8.0, n).astype(np.float32)
-    # include far-clip straddlers and inside-origin cases
-    c[:2000] = o[:2000] + d[:2000] * rng.uniform(990, 1010, (2000, 1))
-    r[:2000] = rng.uniform(1.0, 20.0, 2000)
-    c[2000:4000] = o[2000:4000] + rng.normal(0, 0.5, (2000, 3))
-    r[2000:4000] = rng.uniform(1.0, 4.0, 2000)
-
-    a = np.sum(d * d, axis=-1)
-    g = np.sum(d * (c - o), axis=-1)
-    cterm = np.sum((o - c) ** 2, axis=-1) - r * r
-    for compat in (True, False):
-        cheap = np.asarray(_sphere_occ_cheap(
-            jnp.asarray(cterm), jnp.asarray(g), jnp.asarray(a),
-            jnp.asarray(1.0 / a), compat))
-        # root-form oracle
-        b = -2.0 * g
-        disc = b * b - 4.0 * a * cterm
-        has = disc >= 0.0
-        sq = np.sqrt(np.where(has, disc, 0.0))
-        nn, nf = -b - sq, -b + sq
-        t_sel = np.where(nn > 0.0, nn, nf) / (2.0 * a)
-        ref = has & (nf > 0.0)
-        if compat:
-            ref &= t_sel < FAR
-        # ignore exact decision-boundary ties (measure-zero in f32)
-        margin = np.abs(disc) > 1e-3 * np.maximum(np.abs(b * b), 1.0)
-        far_margin = (np.abs(t_sel - FAR) > 1e-3) | ~has
-        ok = margin & far_margin
-        assert (cheap[ok] == ref[ok]).all(), (
-            f"compat={compat}: {np.sum(cheap[ok] != ref[ok])} mismatches")
+def test_pallas_requires_gpu_unless_interpret(demo_scene):
+    """No silent fallback: off a GPU the compiled kernel refuses to run, and
+    the interpreter is reached only by asking for it."""
+    cam = rt.default_camera((8, 8))
+    with pytest.raises(RuntimeError, match="GPU"):
+        render_image_pallas(cam, demo_scene)
+    with pytest.raises(RuntimeError, match="GPU"):
+        render_image_fast(cam, demo_scene)
+    from python_ray_tracer_jax.parallel.mesh import make_mesh
+    from python_ray_tracer_jax.parallel.render_sharded import render_image_sharded
+    with pytest.raises(RuntimeError, match="GPU"):
+        render_image_sharded(cam, demo_scene, make_mesh(jax.devices()[:2]),
+                             backend="pallas")
 
 
-def test_shadow_cheap_guard_huge_radius():
-    """Scenes with radius >= FAR/2 must fall back to the root-form shadow
-    sweep under compat (the only configuration where the segment test can
-    diverge from the reference's selected-root far clip)."""
-    from python_ray_tracer_tpu.ops.pallas.render_pallas import _shadow_cheap_ok
-    small = rt.default_scene()
-    assert _shadow_cheap_ok(small, True)
-    huge = dataclasses.replace(
-        small, spheres=dataclasses.replace(
-            small.spheres,
-            radius=small.spheres.radius.at[0].set(600.0)))
-    assert not _shadow_cheap_ok(huge, True)
-    assert _shadow_cheap_ok(huge, False)  # clean mode: exact at any radius
+def test_pack_table_layout(demo_scene):
+    """The kernel's scene table: power-of-two length, header then the SoA rows
+    at the offsets the kernel reads."""
+    cam = rt.default_camera((8, 8))
+    tab = np.asarray(rp._pack_table(cam, demo_scene, True, 3.0))
+    ns, npl, nl = 6, 1, 3
+    sph, pln, lts, size = rp._layout(ns, npl, nl)
+    assert tab.shape == (size,) and size & (size - 1) == 0
+    assert tab[rp._P_X0] == 3.0
+    np.testing.assert_array_equal(tab[rp._P_OFFS:rp._P_OFFS + 2], [0.0, 0.0])
+    np.testing.assert_allclose(tab[sph:sph + ns],
+                               np.asarray(demo_scene.spheres.center)[:, 0])
+    np.testing.assert_allclose(tab[sph + 3 * ns:sph + 4 * ns],
+                               np.asarray(demo_scene.spheres.radius))
+    np.testing.assert_allclose(tab[pln + 3 * npl:pln + 6 * npl],
+                               np.asarray(demo_scene.planes.normal)[0])
+    np.testing.assert_allclose(tab[lts + 2 * nl:lts + 3 * nl],
+                               np.asarray(demo_scene.lights.position)[:, 2])
+    assert not tab[lts + 3 * nl:].any()
 
 
-@pytest.mark.slow  # opt-in path (default-off since the two-pass lists landed);
-                   # ~14-21 s of interpret traces per variant
-@pytest.mark.parametrize("compat,aliasing", [
-    (True, False),
-    # clean mode re-traces the sweep (~21 s); its cull guard logic differs
-    # only in the radius fallback, covered by test_shadow_cheap_guard_*
-    pytest.param(False, False),
-    pytest.param(True, True)])
-def test_pallas_shadow_cull_exact(compat, aliasing):
-    """shadow_cull=True must be invisible: culled == unculled bit-for-bit.
+@pytest.mark.parametrize("aliasing", [False, True])
+def test_pallas_lowers_to_triton(demo_scene, aliasing):
+    """The kernel lowers for CUDA through the Triton route (this catches an
+    operation the Triton lowering lacks; PTX codegen runs on the card)."""
+    cam = rt.default_camera((24, 16))
 
-    Includes an occluder planted BEYOND a light: the reference's any-hit
-    counts hits at any 0 < t < FAR (unbounded in clean mode), so a sphere
-    past the light still shadows — the cull's swept region must include the
-    beyond-the-light cone, not stop at the light. The aliasing=True case
-    exercises the shared-AA kernel's shadow-cull table path, which builds
-    its swept cone from the jittered half-grid rays."""
-    import python_ray_tracer_tpu.models.scene as sc
-    base = rt.random_scene(jax.random.key(5), n_spheres=18)
-    L0 = np.asarray(base.lights.position)[0]
-    u = (L0 - np.array([0.0, 0.0, 2.0]))
-    u = u / np.linalg.norm(u)
-    beyond = (L0 + 4.0 * u).astype(np.float32)
-    scene = dataclasses.replace(
-        base, spheres=sc.Spheres(
-            center=jnp.concatenate([base.spheres.center, jnp.asarray([beyond])]),
-            radius=jnp.concatenate([base.spheres.radius, jnp.asarray([1.5])]),
-            albedo=jnp.concatenate([base.spheres.albedo,
-                                    jnp.asarray([[1.0, 0.0, 0.0]])])))
-    # depth=0 keeps the fast variant cheap: the cull + beyond-the-light quirk
-    # act on the level-0 shadow sweep; bounce-level sweeps use the same code
-    # path (the slow variants run depth=1).
-    cam = rt.Camera.build((16, 8), [-7, 0, 3], [0, -20, 0])
-    kw = dict(depth=0 if (compat and not aliasing) else 1, aliasing=aliasing,
-              aa_share=True, compat=compat, tile_w=8, tile_h=8, interpret=True)
-    culled = np.asarray(render_image_pallas(cam, scene, shadow_cull=True, **kw))
-    plain = np.asarray(render_image_pallas(cam, scene, shadow_cull=False, **kw))
-    np.testing.assert_array_equal(culled, plain)
-    # prove the beyond-the-light sphere actually shadows something: without it
-    # the image must differ (the unlimited-range quirk is exercised)
-    without = np.asarray(render_image_pallas(cam, base, shadow_cull=False, **kw))
-    assert np.abs(plain - without).max() > 1e-3
+    def f(c, s):
+        return rp._render_image_pallas(c, s, depth=2, aliasing=aliasing,
+                                       compat=True, interpret=False,
+                                       x_offset=0.0, local_width=None)
+
+    text = jax.jit(f).trace(cam, demo_scene).lower(
+        lowering_platforms=("cuda",)).as_text()
+    assert "__gpu$xla.gpu.triton" in text
 
 
-@pytest.mark.parametrize("compat,aliasing,depth,levels,quirk", [
-    (True, False, 1, 2, False),      # levels=2: multi-level prepass (bounce
-    # chains in the AABB pass) + listed sweeps at BOTH trace levels; the fast
-    # variant skips the third (planted-occluder-free) interpret trace — the
-    # beyond-the-light quirk render re-runs in the slow variants
-    # partial levels, shared-AA, and clean variants re-trace the interpret
-    # graph (~15-40 s each on this host) — slow set
-    pytest.param(True, False, 2, 1, True, marks=pytest.mark.slow),
-    pytest.param(True, True, 1, None, True, marks=pytest.mark.slow),
-    pytest.param(False, False, 2, None, True, marks=pytest.mark.slow)])
-def test_pallas_shadow_lists_exact(compat, aliasing, depth, levels, quirk):
-    """The two-pass shadow pipeline must be invisible: shadow_lists=True ==
-    shadow_lists=False bit-for-bit (hit-extent prepass -> conservative
-    per-(tile,light) occluder lists -> listed level-0 sweeps).
-
-    Includes the planted beyond-the-light occluder (unlimited-range any-hit,
-    reference trace.py:92-96) and sky tiles (camera sees past the plane for
-    the top rows at this pose — those tiles' rows must cull to count 0 without
-    dropping occlusion anywhere)."""
-    import python_ray_tracer_tpu.models.scene as sc
-    base = rt.random_scene(jax.random.key(11), n_spheres=22)
-    L0 = np.asarray(base.lights.position)[0]
-    u = (L0 - np.array([0.0, 0.0, 2.0]))
-    u = u / np.linalg.norm(u)
-    beyond = (L0 + 4.0 * u).astype(np.float32)
-    scene = dataclasses.replace(
-        base, spheres=sc.Spheres(
-            center=jnp.concatenate([base.spheres.center, jnp.asarray([beyond])]),
-            radius=jnp.concatenate([base.spheres.radius, jnp.asarray([1.5])]),
-            albedo=jnp.concatenate([base.spheres.albedo,
-                                    jnp.asarray([[1.0, 0.0, 0.0]])])))
-    # 16x8 keeps the fast variant ~15 s (3 separate interpret traces:
-    # listed, plain, and the planted-occluder-free scene are all distinct)
-    cam = rt.Camera.build((16, 8), [-7, 0, 3], [0, 10, 0])
-    kw = dict(depth=depth, aliasing=aliasing, aa_share=aliasing, compat=compat,
-              tile_w=8, tile_h=8, interpret=True)
-    listed = np.asarray(render_image_pallas(cam, scene, shadow_lists=True,
-                                            shadow_list_levels=levels, **kw))
-    plain = np.asarray(render_image_pallas(cam, scene, shadow_lists=False, **kw))
-    np.testing.assert_array_equal(listed, plain)
-    if quirk:
-        # the beyond-the-light sphere must still shadow (quirk exercised)
-        without = np.asarray(render_image_pallas(cam, base, shadow_lists=True,
-                                                 shadow_list_levels=levels,
-                                                 **kw))
-        assert np.abs(listed - without).max() > 1e-3
-
-
-def test_pallas_shadow_lists_sharded_slice():
-    """Lists under ray-DP slicing: on a vertical slice (x_offset +
-    local_width) the listed render must equal the unlisted one bit-for-bit
-    (the prepass reads the global x offset from params, so each shard builds
-    lists for its own tiles' global rays). Guards the production default —
-    the sharded path gets lists automatically. Slice-vs-full-columns is NOT
-    asserted bit-exact here: the slice layout reassociates f32 by ~1e-7
-    independently of lists (same tolerance class as
-    test_pallas_sharded_slices)."""
-    scene = rt.random_scene(jax.random.key(7), n_spheres=24)
-    cam = rt.Camera.build((16, 8), [-7, 0, 3], [0, 10, 0])
-    kw = dict(depth=0, aliasing=False, compat=True, tile_w=8, tile_h=8,
-              interpret=True, x_offset=8.0, local_width=8)
-    sl_listed = np.asarray(render_image_pallas(cam, scene, shadow_lists=True,
-                                               **kw))
-    sl_plain = np.asarray(render_image_pallas(cam, scene, shadow_lists=False,
-                                              **kw))
-    np.testing.assert_array_equal(sl_listed, sl_plain)
-
-
-def test_shadow_visibility_lists_unit():
-    """List builder semantics: sky rows cull everything (count 0), compacted
-    rows are angular-size ordered and remapped to sorted-table positions, and
-    overflow rows carry the -1 sentinel."""
-    from python_ray_tracer_tpu.ops.pallas.render_pallas import (
-        _shadow_visibility_lists)
-    # one tile with hits near the origin, one sky tile (count slot 0)
-    ext = jnp.asarray([
-        [-1.0, -1.0, 0.0, 1.0, 1.0, 0.5, 64.0, 0.0],
-        [1e30, 1e30, 1e30, -1e30, -1e30, -1e30, 0.0, 0.0]], jnp.float32)
-    lights = jnp.asarray([[0.0, 0.0, 10.0]], jnp.float32)
-    # sphere 0: tiny + between tile and light (kept; smaller apparent size)
-    # sphere 1: big + just beyond the light (kept, quirk; biggest apparent)
-    # sphere 2: far off to the side (culled)
-    centers = jnp.asarray([[0.0, 0.0, 5.0], [0.0, 0.0, 14.0],
-                           [50.0, 0.0, 1.0]], jnp.float32)
-    radii = jnp.asarray([0.1, 3.0, 0.5], jnp.float32)
-    idx, cnt = _shadow_visibility_lists(ext, lights, centers, radii,
-                                        nl=1, K=2, compat=True)
-    cnt = np.asarray(cnt)
-    idx = np.asarray(idx).reshape(2, 2)
-    assert cnt[0] == 2 and cnt[1] == 0
-    assert list(idx[0]) == [1, 0]      # big-apparent-occluder first
-    # remap through a sorted-table permutation: original j sits at position
-    # to_sorted[j]
-    to_sorted = jnp.asarray([2, 0, 1], jnp.int32)
-    idx2, _ = _shadow_visibility_lists(ext, lights, centers, radii,
-                                       nl=1, K=2, compat=True,
-                                       to_sorted=to_sorted)
-    assert list(np.asarray(idx2).reshape(2, 2)[0]) == [0, 2]
-    # K overflow -> sentinel
-    _, cnt3 = _shadow_visibility_lists(ext, lights, centers, radii,
-                                       nl=1, K=1, compat=True)
-    assert np.asarray(cnt3)[0] == -1
-
-
-def test_cull_capacity_policy():
-    """Compact-table sizing: K scales with scene density, then halves while the
-    SMEM table budget would be exceeded (a large grid with a reduced K still
-    beats no cull), and never drops below the 32-slot floor."""
-    from python_ray_tracer_tpu.ops.pallas.render_pallas import (_CULL_BUDGET,
-                                                                _cull_capacity)
-    assert _cull_capacity(6, 405) == 6            # tiny scene: K = ns
-    assert _cull_capacity(100, 405) == 32         # <=256 spheres: floor
-    assert _cull_capacity(1000, 405) == 64        # dense 1080p grid: scaled up
-    assert _cull_capacity(4000, 405) == 128
-    # 4K-scale grid (3240 tiles): 1000 spheres wants K=64 = 207k entries,
-    # over the 160k budget -> steps down to 32 (103k fits)
-    assert _cull_capacity(1000, 3240) == 64 // 2
-    assert 3240 * _cull_capacity(1000, 3240) <= _CULL_BUDGET
-    # pathological grid: floor reached while still over budget -> caller
-    # disables the cull (capacity itself stays at the floor)
-    k = _cull_capacity(1000, 10_000)
-    assert k == 32 and 10_000 * k > _CULL_BUDGET
-    # shadow-list capacity: same policy, 16-slot floor (rows are nl x tiles)
-    from python_ray_tracer_tpu.ops.pallas.render_pallas import (
-        _SH_BUDGET, _shadow_list_capacity)
-    assert _shadow_list_capacity(100, 405 * 3) == 32
-    assert _shadow_list_capacity(1000, 405 * 3) == 64
-    assert _shadow_list_capacity(1000, 3240 * 3) == 16
-    assert 3240 * 3 * 16 <= _SH_BUDGET
+@pytest.mark.gpu
+@pytest.mark.parametrize("aliasing", [False, True])
+def test_pallas_compiled_matches_jnp(gpu, demo_scene, aliasing):
+    """The compiled kernel on the card == the jnp path on the card."""
+    cam = rt.default_camera((128, 96))
+    ref = np.asarray(rt.to_framebuffer(rt.render_image(
+        cam, demo_scene, depth=2, aliasing=aliasing))).astype(int)
+    out = np.asarray(rt.to_framebuffer(render_image_pallas(
+        cam, demo_scene, depth=2, aliasing=aliasing))).astype(int)
+    assert (np.abs(out - ref).max(axis=0) > 1).mean() <= 1e-3

@@ -4,11 +4,11 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-import python_ray_tracer_tpu as rt
-from python_ray_tracer_tpu.parallel.mesh import make_mesh, image_sharding
-from python_ray_tracer_tpu.parallel.render_sharded import (render_image_sharded,
+import python_ray_tracer_jax as rt
+from python_ray_tracer_jax.parallel.mesh import make_mesh, image_sharding
+from python_ray_tracer_jax.parallel.render_sharded import (render_image_sharded,
                                                            make_loss_fn)
-from python_ray_tracer_tpu import train
+from python_ray_tracer_jax import train
 
 
 @pytest.fixture(scope="module")
@@ -40,7 +40,7 @@ def test_mesh_sizes(n_dev, demo_scene):
 def test_gather_framebuffer_all_gather_assembly(mesh, demo_scene):
     """Framebuffer assembly is a real tiled all_gather over the mesh, not a
     host-side device_get of an already-local array (VERDICT r1 #6)."""
-    from python_ray_tracer_tpu.parallel.distributed import (gather_framebuffer,
+    from python_ray_tracer_jax.parallel.distributed import (gather_framebuffer,
                                                             _all_gather_image)
     cam = rt.default_camera((16, 16))
     single = np.asarray(rt.render_image(cam, demo_scene, depth=1, aliasing=False))
@@ -135,7 +135,7 @@ def test_sharded_soft_loss_matches_single(mesh):
         scene, spheres=dataclasses.replace(scene.spheres,
                                            center=scene.spheres.center + 0.03))
 
-    from python_ray_tracer_tpu import train
+    from python_ray_tracer_jax import train
     loss_single = train.soft_pixel_loss(cam, target, tau=0.05)
     loss_sharded = make_loss_fn(cam, target_sharded, mesh, soft=True, tau=0.05)
     l1, g1 = jax.value_and_grad(loss_single)(perturbed)
@@ -144,41 +144,6 @@ def test_sharded_soft_loss_matches_single(mesh):
     np.testing.assert_allclose(np.asarray(g1.spheres.center),
                                np.asarray(g2.spheres.center), rtol=1e-3,
                                atol=1e-7)
-
-
-@pytest.mark.slow  # 78 s: fused fwd+bwd interpret traces under shard_map
-def test_sharded_fused_value_and_grad(demo_scene):
-    """Ray-DP training with the fused Mosaic kernels on every shard: loss and
-    psum'd scene grads must match the single-device fused path exactly (the
-    same kernels run per slice; gradients are pixel sums)."""
-    mesh = make_mesh(jax.devices()[:2])
-    cam = rt.default_camera((32, 16))
-    target = rt.render_image(cam, demo_scene, depth=1, aliasing=False,
-                             compat=True) * 0.9
-    vg_sh = train.pallas_value_and_grad_sharded(cam, mesh, depth=1,
-                                                pallas_interpret=True)
-    loss_sh, grads_sh = vg_sh(demo_scene, target)
-
-    # single-device fused oracle (same kernels, full width)
-    from python_ray_tracer_tpu.ops.pallas.render_pallas import render_image_pallas
-    from python_ray_tracer_tpu.ops.pallas.render_bwd import scene_grads_pallas
-    img = render_image_pallas(cam, demo_scene, depth=1, aliasing=False,
-                              compat=True, interpret=True)
-    diff = img - target
-    loss_ref = jnp.mean(diff ** 2)
-    g_img = 2.0 * diff / diff.size
-    grads_ref = scene_grads_pallas(cam, demo_scene, g_img, depth=1,
-                                   compat=True, interpret=True)
-    # rel 1e-5, not 1e-6: the sharded step is fully fused (in-kernel MSE) —
-    # per-tile loss partials + psum reassociate the f32 sum vs jnp.mean, and
-    # the in-kernel forward combine factors shading as (amb+lamb*sum)*albedo
-    # (~1 ULP vs the render kernel; see loss_and_scene_grads_pallas).
-    assert float(loss_sh) == pytest.approx(float(loss_ref), rel=1e-5)
-    # slice-partial + psum reassociates the f32 pixel sums vs one full sweep
-    for a, b in zip(jax.tree_util.tree_leaves(grads_sh),
-                    jax.tree_util.tree_leaves(grads_ref)):
-        np.testing.assert_allclose(np.asarray(a), np.asarray(b),
-                                   rtol=1e-4, atol=1e-7)
 
 
 def _run_mp_workers(extra_args=(), timeout=240):
@@ -214,13 +179,13 @@ def test_multiprocess_framebuffer_assembly():
     """REAL multi-process validation of the multi-host path (VERDICT r1 #6 was
     closed with a virtual-mesh test; this goes further): two OS processes form
     a 2-process x 2-local-device JAX cluster over loopback Gloo — the CPU
-    stand-in for a pod slice over DCN. Each worker renders over the GLOBAL
+    stand-in for several hosts on a network. Each worker renders over the GLOBAL
     4-device mesh (the render is NOT fully addressable from either process),
     assembles via gather_framebuffer's tiled all_gather AND the
     process_allgather fallback, and checks both against an unsharded render.
     Also guards the import-time invariant that makes this possible at all:
     importing the package must not initialize the XLA backend
-    (jax.distributed.initialize must come first on a real pod)."""
+    (jax.distributed.initialize must come first on a real cluster)."""
     _run_mp_workers()
 
 

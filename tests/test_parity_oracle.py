@@ -8,7 +8,7 @@ pixels (f32 vs f64 can flip a hit test exactly on a silhouette).
 import numpy as np
 import pytest
 
-import python_ray_tracer_tpu as rt
+import python_ray_tracer_jax as rt
 
 from . import oracle
 

@@ -6,8 +6,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-import python_ray_tracer_tpu as rt
-from python_ray_tracer_tpu import train
+import python_ray_tracer_jax as rt
+from python_ray_tracer_jax import train
 
 
 def _two_sphere_scene(offset=0.0):
@@ -134,66 +134,14 @@ def test_fit_camera_recovers_pose():
     assert float(fitted.fov) == pytest.approx(float(init.fov))
 
 
-def test_camera_value_and_grad_pallas_matches_jnp():
-    """Kernel-speed camera fitting (train.camera_value_and_grad): the fused
-    kernel's camera adjoints, chained through euler_rotation to the fit's
-    {position, euler, fov} parameterization, match XLA autodiff of the jnp
-    loss — so `fit_camera(backend="pallas")` optimizes the same objective."""
-    import jax
-    import jax.numpy as jnp
-    from python_ray_tracer_tpu.models.camera import Camera, euler_rotation
-
-    scene = rt.Scene(
-        rt.Spheres.build([([2.5, 0.5, 1.0], 0.8, rt.RED),
-                          ([1.5, -0.9, 0.5], 0.5, rt.BLUE)]),
-        rt.Planes.build([([5, 0, 0], [0, 0, 1], rt.GREY)]),
-        rt.Lights.build([[2.5, -2.0, 3.0], [2.5, 2.0, 3.0]]),
-        rt.Materials.build())
-    res = (24, 24)
-    true_cam = rt.Camera.build(res, [-2.0, 0.0, 2.0], [0.0, -30.0, 0.0])
-    target = rt.render_image(true_cam, scene, depth=1, aliasing=False)
-    params = {"position": jnp.asarray([-2.1, 0.08, 1.92], jnp.float32),
-              "euler": jnp.deg2rad(jnp.asarray([1.5, -27.5, 2.0], jnp.float32)),
-              "fov": jnp.float32(45.0)}
-
-    def loss_jnp(p):
-        cam = Camera(position=p["position"],
-                     rotation=euler_rotation(p["euler"][0], p["euler"][1],
-                                             p["euler"][2], is_radians=True),
-                     fov=p["fov"], resolution=res)
-        img = rt.render_image(cam, scene, depth=1, aliasing=False)
-        return jnp.mean((img - target) ** 2)
-
-    l_j, g_j = jax.value_and_grad(loss_jnp)(params)
-    vg = train.camera_value_and_grad(scene, target, res, depth=1,
-                                     interpret=True)
-    l_k, g_k = vg(params)
-    np.testing.assert_allclose(float(l_k), float(l_j), rtol=1e-5)
-    np.testing.assert_allclose(np.asarray(g_k["position"]),
-                               np.asarray(g_j["position"]), rtol=5e-3,
-                               atol=1e-5)
-    np.testing.assert_allclose(np.asarray(g_k["euler"]),
-                               np.asarray(g_j["euler"]), rtol=5e-3, atol=1e-4)
-    np.testing.assert_allclose(np.asarray(g_k["fov"]),
-                               np.asarray(g_j["fov"]), atol=5e-5)
-
-
-def test_fit_camera_pallas_backend_converges():
-    """fit_camera(backend="pallas"): one fused kernel per step, converges like
-    the jnp path on the pose-recovery task."""
-    scene = rt.Scene(
-        rt.Spheres.build([([2.5, 0.5, 1.0], 0.8, rt.RED),
-                          ([1.5, -0.9, 0.5], 0.5, rt.BLUE)]),
-        rt.Planes.build([([5, 0, 0], [0, 0, 1], rt.GREY)]),
-        rt.Lights.build([[2.5, -2.0, 3.0], [2.5, 2.0, 3.0]]),
-        rt.Materials.build())
-    true_cam = rt.Camera.build((24, 24), [-2.0, 0.0, 2.0], [0.0, -30.0, 0.0])
-    target = rt.render_image(true_cam, scene, depth=1, aliasing=False)
-    init = rt.Camera.build((24, 24), [-2.1, 0.08, 1.92], [1.5, -27.5, 2.0])
-
-    fitted, losses = train.fit_camera(init, scene, target, steps=60, depth=1,
-                                      backend="pallas", pallas_interpret=True)
-    assert losses[-1] < losses[0] * 0.6, losses[::15]
-    err0 = np.abs(np.asarray(init.position) - np.asarray(true_cam.position)).max()
-    err1 = np.abs(np.asarray(fitted.position) - np.asarray(true_cam.position)).max()
-    assert err1 < err0, (err0, err1)
+def test_fit_scene_row_chunk_matches_whole(demo_scene):
+    """fit_scene(row_chunk=...) — the memory-bounded step large images need —
+    takes the same optimization path as the whole-image step."""
+    cam = rt.default_camera((16, 16))
+    target = rt.render_image(cam, demo_scene, depth=1, aliasing=False)
+    init = dataclasses.replace(demo_scene, spheres=dataclasses.replace(
+        demo_scene.spheres, center=demo_scene.spheres.center + 0.05))
+    kw = dict(steps=3, depth=1, trainable=("spheres.center",))
+    _, whole = train.fit_scene(init, cam, target, **kw)
+    _, chunked = train.fit_scene(init, cam, target, row_chunk=4, **kw)
+    np.testing.assert_allclose(chunked, whole, rtol=1e-4)
